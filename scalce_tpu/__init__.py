@@ -1,6 +1,6 @@
-"""scalce_tpu — a TPU-native FASTQ compression framework.
+"""scalce_tpu — a GPU-accelerated FASTQ compression framework in JAX.
 
-A from-scratch, TPU-first re-design of the capabilities of
+A from-scratch, accelerator-first re-design of the capabilities of
 ``sfu-compbio/scalce`` (SCALCE: "boosting sequence compression algorithms
 using locally consistent encoding", Hach et al., Bioinformatics 2012).
 
@@ -12,7 +12,9 @@ empty at build time; see SURVEY.md §0].
 
 scalce_tpu keeps the *capabilities* (reorder-boosted stream-split FASTQ
 compression, lossy quality mode, paired-end sync, part splitting, CLI
-compatibility) but re-architects every hot path for TPU:
+compatibility) but re-architects every hot path as batched JAX work on
+the accelerator (an NVIDIA GPU), with native C host paths for machines
+without one:
 
 - LCE tokenization   -> batched rolling 2-bit k-mer ranking on device
                         (``scalce_tpu.ops.core_match``)
@@ -27,7 +29,7 @@ Layout:
   io/        host-side FASTQ parse/write, byte-stream backends (zlib/bz2)
   models/    core-substring dictionary, quality context models, lossy
              quantizer model
-  ops/       device kernels (pure-XLA reference paths + Pallas variants)
+  ops/       device ops (plain jax.numpy / lax, compiled by XLA)
   pipeline/  jit-compiled block encode/decode pipelines
   parallel/  mesh/sharding, multi-host ordered merge
   utils/     logging, stats

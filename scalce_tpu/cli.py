@@ -21,13 +21,14 @@ import sys
 from typing import List, Optional
 
 from scalce_tpu.config import Config, parse_size
+from scalce_tpu.io.backend import DEFAULT_BACKEND
 from scalce_tpu.version import __version__
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="scalce_tpu",
-        description="TPU-native SCALCE-class FASTQ compressor")
+        description="GPU-accelerated SCALCE-class FASTQ compressor")
     p.add_argument("inputs", nargs="+", help="input FASTQ (or .scalce* with -d)")
     p.add_argument("-d", "--decompress", action="store_true")
     p.add_argument("-r", "--paired", action="store_true",
@@ -42,11 +43,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", "--name-lib", default=None, metavar="LIB",
                    help="discard names; regenerate as LIB.N")
     p.add_argument("-c", "--backend", choices=("zstd", "gz", "bz", "no"),
-                   default="zstd",
+                   default=DEFAULT_BACKEND,
                    help="generic byte backend for payload arrays; -c is "
                         "the reference's spelling of its gz/bz/no output "
                         "modes [REF: scalce.c -c flag — UNVERIFIED; "
-                        "SURVEY.md §1], zstd is the fast default")
+                        "SURVEY.md §1], zstd is the fast default where "
+                        "the zstandard package is installed, gz "
+                        "otherwise")
     p.add_argument("--data-parallel", action="store_true",
                    help="shard blocks over all local devices")
     p.add_argument("--n-hosts", type=int, default=1,
@@ -81,9 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(3 = fine position buckets x full prev symbol)")
     p.add_argument("--qual-device", action="store_true",
                    help="place the quality entropy codec on the "
-                        "accelerator (best with locally-attached TPUs); "
-                        "default is the host path — both emit identical "
-                        "bytes")
+                        "accelerator; default is the host path — both "
+                        "emit identical bytes")
     p.add_argument("--delta-device", action="store_true",
                    help="place the sequence predecessor-delta on the "
                         "accelerator: encode-side match, and on "
@@ -94,8 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="where the core matcher + bucket sort runs: "
                         "the accelerator, the host (native C), or "
-                        "AUTO (default — probe the device link once "
-                        "and pick).  Identical output bytes either way")
+                        "AUTO (default — the accelerator when JAX runs "
+                        "on a GPU, the host otherwise).  Identical "
+                        "output bytes either way")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a jax.profiler trace of the run to DIR")
@@ -142,6 +145,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     from scalce_tpu.pipeline import driver
+    from scalce_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.merge_hosts:
         n = driver.merge_hosts(cfg)
         print(f"[scalce_tpu] merged {n} blocks from {cfg.n_hosts} hosts",

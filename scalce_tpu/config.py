@@ -82,7 +82,7 @@ class Config:
     resume: bool = False               # skip blocks already durable in the
                                        # output (restart after crash)
 
-    # --- TPU pipeline shape --------------------------------------------
+    # --- device pipeline shape -----------------------------------------
     block_reads: int = 1 << 18         # reads per device block (static
                                        # shape); bigger blocks = denser
                                        # buckets = better delta matching
@@ -120,23 +120,19 @@ class Config:
                                        # 1/2/3 fixes the order (3 = fine
                                        # pos buckets x full prev symbol)
     qual_on_device: bool = False       # place the quality entropy codec
-                                       # on the accelerator (best with
-                                       # locally-attached TPUs) or the
-                                       # host (best when the device link
-                                       # is narrow).  Both paths emit
-                                       # IDENTICAL bytes (pinned by test)
-                                       # — a pure placement choice.
+                                       # on the accelerator or the host.
+                                       # Both paths emit IDENTICAL bytes
+                                       # (pinned by test) — a pure
+                                       # placement choice.
 
     core_on_device: Optional[bool] = None
                                        # place the core matcher +
                                        # bucket sort on the accelerator
                                        # (True), on the host in native
                                        # C (False), or AUTO (None,
-                                       # default): probe the device
-                                       # link once and pick — device on
-                                       # locally-attached TPUs, host
-                                       # when the link is narrower than
-                                       # the host's own matcher.
+                                       # default): the accelerator when
+                                       # JAX's default backend is a GPU,
+                                       # the host otherwise.
                                        # Identical output bytes either
                                        # way (pinned by test).  Host
                                        # placement requires host-placed
@@ -149,9 +145,8 @@ class Config:
                                        # the sorted 2-bit-packed block
                                        # (L/4 bytes/read) instead of the
                                        # delta products and runs the
-                                       # byte-compare match in native C
-                                       # — the win on narrow links, like
-                                       # qual_on_device.  Identical
+                                       # byte-compare match in native C,
+                                       # like qual_on_device.  Identical
                                        # output bytes either way (pinned
                                        # by test).  Device placement is
                                        # forced when the native library

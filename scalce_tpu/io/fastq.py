@@ -2,8 +2,8 @@
 
 The reference parses FASTQ one record at a time in a scalar C loop
 [REF: scalce reads.c record loop — UNVERIFIED; SURVEY.md §4.1 hot loop #1].
-A scalar loop is the wrong shape for feeding a TPU: the device wants large,
-static-shape, padded batches.  This module therefore parses FASTQ with
+A scalar loop is the wrong shape for feeding an accelerator: the device
+wants large, static-shape, padded batches.  This module therefore parses FASTQ with
 whole-buffer NumPy vector ops (newline scan + ragged gather) and emits
 ``ReadBlock``s — padded ``[B, L]`` uint8 arrays plus a length vector —
 ready for a single H2D transfer.  Ragged per-record strings (names, '+'

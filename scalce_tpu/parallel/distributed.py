@@ -4,11 +4,11 @@
 The reference has no distributed story at all; scalce_tpu's is
 deliberately thin because blocks are independent:
 
-  1. every host calls :func:`init_multihost` (DCN rendezvous),
+  1. every host calls :func:`init_multihost` (network rendezvous),
   2. every host runs ``driver.compress`` with ``n_hosts``/``host_id``
      filled from the process group — each encodes its strided share of
      blocks to a private triplet,
-  3. :func:`barrier` (a tiny device all-reduce over ICI/DCN),
+  3. :func:`barrier` (a tiny device all-reduce across hosts),
   4. rank 0 runs ``driver.merge_hosts`` — the deterministic ordered
      gather; output is byte-identical to a 1-host run (tested in
      tests/test_multihost.py via simulated hosts).

@@ -10,9 +10,9 @@ output is BYTE-IDENTICAL to the 1-host output (SURVEY.md §5:
 because every block payload is a pure function of (input block, config)
 and the merge order is a pure function of block ids.
 
-This is host-level data movement over DCN/filesystem, not a tensor
+This is host-level data movement over the network/filesystem, not a tensor
 collective — the reference analogue is nothing at all (it has no
-multi-node story); the TPU-native design gets it by block construction.
+multi-node story); this design gets it by block construction.
 """
 
 from __future__ import annotations

@@ -143,8 +143,7 @@ def make_sharded_stage_mate2(mesh: Mesh, k: int, seed: int, order: int,
 
     @partial(jax.shard_map, mesh=mesh,
              in_specs=(dspec,) * 6 + (rspec, rspec),
-             out_specs=(dspec,) * 5,
-             check_vma=False)   # Mosaic out_shapes carry no vma
+             out_specs=(dspec,) * 5)
     def stage2(seq, qual, lengths, n_reads, exc_mask, perm, qual_map,
                rank_lut):
         f = partial(_block_stage_mate2, k=k, seed=seed, order=order,
@@ -168,8 +167,7 @@ def make_sharded_stage1(mesh: Mesh, k: int, seed: int, order: int,
 
     @partial(jax.shard_map, mesh=mesh,
              in_specs=(dspec, dspec, dspec, dspec, dspec, rspec, rspec),
-             out_specs=(dspec,) * 6,
-             check_vma=False)   # Mosaic out_shapes carry no vma
+             out_specs=(dspec,) * 6)
     def stage1(seq, qual, lengths, n_reads, exc_mask, qual_map, rank_lut):
         f = partial(_block_stage1, k=k, seed=seed, order=order,
                     uniform=uniform)
@@ -179,34 +177,22 @@ def make_sharded_stage1(mesh: Mesh, k: int, seed: int, order: int,
     return jax.jit(stage1)
 
 
-def make_sharded_qual_encode(mesh: Mesh, n_ctx: int, n_syms: int, T: int,
-                             order: int = 1):
+def make_sharded_qual_encode(mesh: Mesh, n_ctx: int, n_syms: int, T: int):
     """jit'd rANS pass B over stacked blocks — per-block tables are
     normalized on device (entropy.device_normalize), matching the
-    single-device path bit for bit.  On TPU the table-resident Mosaic
-    encode replaces the per-symbol LUT gather exactly as the
-    single-device dispatch does (round 5; vmap of the kernel verified
-    byte-identical on hardware); off-TPU / odd shapes keep the gather
-    path, so the CPU mesh tests pin the same bytes."""
+    single-device path bit for bit."""
     from scalce_tpu.models import entropy
-    from scalce_tpu.streams import qualities as Q
     dspec = P("data")
 
     @partial(jax.shard_map, mesh=mesh,
-             in_specs=(dspec,) * 3, out_specs=(dspec,) * 4,
-             check_vma=False)   # pallas_call out_shapes carry no vma
+             in_specs=(dspec,) * 3, out_specs=(dspec,) * 4)
     def encode(sym, ctx, counts):
         def one(sym_b, ctx_b, counts_b):
             freq, cum = entropy.device_normalize(counts_b, n_ctx, n_syms)
-            B, L = sym_b.shape
-            if order and Q._tbl_encode_eligible(B, L, T, order):
-                states, packed, wcounts = Q._encode_pass_slab(
-                    sym_b, ctx_b, freq, cum, T, order)
-            else:
-                states, words, emits = rans.rans_encode(
-                    sym_b.reshape(-1), ctx_b.reshape(-1),
-                    freq.reshape(-1), cum.reshape(-1), n_syms, T)
-                packed, wcounts = rans.compact_emissions(words, emits)
+            states, words, emits = rans.rans_encode(
+                sym_b.reshape(-1), ctx_b.reshape(-1),
+                freq.reshape(-1), cum.reshape(-1), n_syms, T)
+            packed, wcounts = rans.compact_emissions(words, emits)
             return freq, states, packed, wcounts
         return jax.vmap(one)(sym, ctx, counts)
 
@@ -257,7 +243,7 @@ class ShardedEncoder:
                                cfg.qual_T_target)
             self._qenc = make_sharded_qual_encode(
                 self.mesh, Q.n_contexts(cfg.qual_context_order), Q.N_SYMS,
-                self._T, order=cfg.qual_context_order)
+                self._T)
         else:
             from scalce_tpu.pipeline.encode import host_delta_available
             self._host_delta = (not cfg.delta_on_device
@@ -290,8 +276,7 @@ class ShardedEncoder:
     def upload_group(self, blocks):
         """H2D uploads for one full group, runnable one group AHEAD of
         dispatch on a background thread (same overlap the single-device
-        driver gets from BlockEncoder.upload — the stacked seq image is
-        the dominant transfer on narrow links).  Returns None for tail
+        driver gets from BlockEncoder.upload).  Returns None for tail
         groups (they take the per-block fallback path)."""
         if len(blocks) != self.D:
             return None
@@ -437,8 +422,8 @@ class ShardedEncoder:
 
 def make_lossy_hist_allreduce(mesh: Mesh, n_syms: int):
     """Global quality histogram with a psum over 'data' — every shard
-    (and every host, over ICI/DCN) sees the same totals, so the lossy
-    merge table is identical everywhere by construction."""
+    sees the same totals, so the lossy merge table is identical
+    everywhere by construction."""
     dspec = P("data")
 
     @partial(jax.shard_map, mesh=mesh, in_specs=(dspec, dspec),

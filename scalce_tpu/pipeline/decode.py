@@ -32,9 +32,9 @@ class DecodedBlock:
     plus: Optional[Ragged]
 
 
-#: blocks decoded per vmapped quality scan (see qualities.decode_batch);
-#: sweep on the dev emulator showed 1/2/4 within noise at 128k-read
-#: blocks (per-step work already large); 4 helps at small blocks
+#: blocks decoded per vmapped quality scan (see qualities.decode_batch):
+#: the scan's cost is per step, so stacking blocks into the lane axis
+#: amortizes it (not measured on the GPU)
 DECODE_GROUP = 4
 
 

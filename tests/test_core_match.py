@@ -211,52 +211,44 @@ def test_reverse_complement_uniform_matches_general():
     np.testing.assert_array_equal(a, b)
 
 
-def test_pallas_rank_argmin_matches_xla_semantics():
-    """The Mosaic matcher's six reductions (interpret mode on CPU) must
-    reproduce the XLA path's (bf, pf, br, p_fwd, kf, kr) exactly on
-    rows with cores, and agree after the final selects on ALL rows
-    (all-invalid rows differ only in masked-away lanes)."""
-    from scalce_tpu.ops import core_pallas
-    if not core_pallas.PALLAS_OK:
-        import pytest
-        pytest.skip("pallas unavailable")
+def test_core_reductions_match_numpy_per_row():
+    """The matcher's six per-row reductions (best rank, first arg and
+    k-mer per strand; the RC strand breaks ties on the LAST forward
+    position) and the selects after them, against a per-row NumPy
+    loop, on ragged rows, exception windows and all-invalid rows."""
     rng = np.random.default_rng(12)
     B, L, k, seed = 64, 48, 8, 0x5CA1CE
     codes = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
     lengths = rng.integers(k, L + 1, size=B).astype(np.int32)
     lengths[:4] = 0                       # all-invalid rows
+    col = np.arange(L)[None, :]
+    codes = np.where(col < lengths[:, None], codes, 0).astype(np.uint8)
     exc = np.zeros((B, L), bool)
     exc[rng.integers(4, B, 30), rng.integers(0, L, 30)] = True
-
-    kmers = core_match.rolling_kmers(jnp.asarray(codes), k)
-    invalid = core_match.window_invalid(jnp.asarray(exc),
-                                        jnp.asarray(lengths), k)
-    bf, pf, br, pfw, kf, kr = [np.asarray(x) for x in
-                               core_pallas.rank_argmin_pallas(
-                                   kmers, invalid, k, seed,
-                                   interpret=True)]
-    # numpy reference mirroring the XLA branch
-    km = np.asarray(kmers)
-    rkm = np.asarray(core_match.revcomp_kmer(kmers, k))
-    inv = np.asarray(invalid)
-    MAX = np.uint32(0xFFFFFFFF)
-    rf = np.where(inv, MAX, np.asarray(bitops.mix32(kmers, seed)))
-    rr = np.where(inv, MAX, np.asarray(
-        bitops.mix32(jnp.asarray(rkm), seed)))
-    pf_ref = rf.argmin(axis=1)
-    bf_ref = rf[np.arange(B), pf_ref]
-    prr = rr[:, ::-1].argmin(axis=1)
-    pfw_ref = rf.shape[1] - 1 - prr
-    br_ref = rr[np.arange(B), pfw_ref]
-    has_core = bf_ref != MAX
-    np.testing.assert_array_equal(bf, bf_ref)
-    np.testing.assert_array_equal(br, br_ref)
-    np.testing.assert_array_equal(pf[has_core], pf_ref[has_core])
-    np.testing.assert_array_equal(pfw[has_core], pfw_ref[has_core])
-    np.testing.assert_array_equal(kf[has_core],
-                                  km[np.arange(B), pf_ref][has_core])
-    np.testing.assert_array_equal(kr[has_core],
-                                  rkm[np.arange(B), pfw_ref][has_core])
-    # coreless rows: every lane is masked by best == MAX downstream;
-    # pin that the masks agree
-    np.testing.assert_array_equal(bf == MAX, ~has_core)
+    ck, cp, is_rc, _, _ = [np.asarray(x) for x in
+                           core_match.find_cores_canonical(
+                               jnp.asarray(codes), jnp.asarray(lengths),
+                               jnp.asarray(exc), k, seed)]
+    P = L - k + 1
+    km = np.zeros((B, P), np.uint32)
+    rkm = np.zeros((B, P), np.uint32)
+    for r in range(B):
+        for p in range(P):
+            km[r, p] = _np_kmer(codes[r], p, k)
+            rkm[r, p] = _np_kmer(3 - codes[r, p:p + k][::-1], 0, k)
+    rank_f = np.asarray(bitops.mix32(jnp.asarray(km), seed))
+    rank_r = np.asarray(bitops.mix32(jnp.asarray(rkm), seed))
+    MAX = 0xFFFFFFFF
+    for r in range(B):
+        ln = int(lengths[r])
+        ok = [p for p in range(max(0, ln - k + 1))
+              if not exc[r, p:p + k].any()]
+        want = (MAX, 0, False)               # (core k-mer, pos, rc)
+        if ok:
+            pf = min(ok, key=lambda p: (int(rank_f[r, p]), p))
+            pfw = min(ok, key=lambda p: (int(rank_r[r, p]), -p))
+            if rank_r[r, pfw] < rank_f[r, pf]:
+                want = (int(rkm[r, pfw]), ln - k - pfw, True)
+            else:
+                want = (int(km[r, pf]), pf, False)
+        assert (int(ck[r]), int(cp[r]), bool(is_rc[r])) == want, r

@@ -422,20 +422,26 @@ def test_long_read_mode_rejects_device_placements():
                block_reads=256, data_parallel=True)
 
 
-def test_link_probe_subprocess_smoke():
-    """The AUTO-placement link probe (now a subprocess so a stuck
-    device op can never abort the parent's PJRT teardown) must resolve
-    to a cached float and never raise."""
+@pytest.mark.parametrize("backend", ["gpu", "cpu"])
+def test_auto_placement_follows_default_backend(monkeypatch, backend):
+    """AUTO core placement resolves in-process from JAX's default
+    backend, with no device probe: the accelerator path on a GPU, the
+    native host path on a machine without one."""
+    import jax
     from scalce_tpu.pipeline import encode as enc_mod
-    enc_mod._LINK_MBPS = None          # force a fresh probe
-    enc_mod._PROBE_THREAD = None
-    enc_mod.start_link_probe()
-    v = enc_mod.device_link_mbps()
-    assert isinstance(v, float) and v >= 0.0
-    # second call returns the cached value without a new probe
-    t = enc_mod._PROBE_THREAD
-    assert enc_mod.device_link_mbps() == enc_mod.device_link_mbps()
-    assert enc_mod._PROBE_THREAD is t
+    if not enc_mod.host_core_available():
+        pytest.skip("native host library unavailable")
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    cfg = Config(mode="compress", inputs=("x",), block_reads=1024,
+                 max_read_len=128)
+    assert cfg.core_on_device is None          # AUTO is the default
+    enc = enc_mod.BlockEncoder(cfg)
+    assert enc.host_core == (backend != "gpu")
+    # an explicit placement is never overridden by the backend
+    dev = enc_mod.BlockEncoder(Config(mode="compress", inputs=("x",),
+                                      block_reads=1024, max_read_len=128,
+                                      core_on_device=True))
+    assert not dev.host_core
 
 
 def test_long_read_v6_minimizer_reorder_roundtrip_and_ratio(tmp_path):

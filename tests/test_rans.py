@@ -150,49 +150,6 @@ def test_binned_quals_collapse(tmp_path):
     assert (tmp_path / "d.fastq").read_bytes() == payload
 
 
-def test_pallas_encode_matches_xla_scan():
-    """The Pallas rANS encode kernel must be bit-identical to the
-    lax.scan path (interpret mode on CPU; compiled on TPU)."""
-    from scalce_tpu.ops import rans_pallas
-    if not rans_pallas.PALLAS_OK:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(7)
-    T, N = 512, 256
-    n_ctx, n_syms = 8, 16
-    S = T * N
-    sym = rng.integers(0, n_syms, size=S)
-    ctx = rng.integers(0, n_ctx, size=S)
-    counts = np.zeros((n_ctx, n_syms), np.int64)
-    np.add.at(counts, (ctx, sym), 1)
-    freq, cum, _ = entropy.tables_from_counts(counts, n_ctx, n_syms,
-                                              build_lut=False)
-    flut = jnp.asarray(freq.reshape(-1))
-    clut = jnp.asarray(cum.reshape(-1))
-    sym_j = jnp.asarray(sym, jnp.uint32)
-    ctx_j = jnp.asarray(ctx, jnp.uint32)
-
-    states_ref, words_ref, emits_ref = rans.rans_encode(
-        sym_j, ctx_j, flut, clut, n_syms, T)
-
-    idx = ctx_j * jnp.uint32(n_syms) + sym_j
-    f_all = flut[idx].reshape(N, T).T
-    c_all = clut[idx].reshape(N, T).T
-    # override tile sizes for the small test shapes
-    old_nt, old_tt = rans_pallas._NT, rans_pallas._TT
-    rans_pallas._NT, rans_pallas._TT = 128, 64
-    try:
-        states, words, emits = rans_pallas.encode_scan_pallas(
-            f_all, c_all, interpret=True)
-    finally:
-        rans_pallas._NT, rans_pallas._TT = old_nt, old_tt
-    np.testing.assert_array_equal(np.asarray(states), np.asarray(states_ref))
-    np.testing.assert_array_equal(np.asarray(emits), np.asarray(emits_ref))
-    # words only meaningful where emitted
-    e = np.asarray(emits_ref)
-    np.testing.assert_array_equal(np.asarray(words)[e],
-                                  np.asarray(words_ref)[e])
-
-
 def test_contexts_win_on_correlated_quals():
     """Previous-symbol contexts must exploit serial correlation (the
     regime where the reference's higher-order adaptive AC earns its
@@ -612,53 +569,6 @@ def test_encode_host_fused_perm_map_identity():
     assert key(ref) == key(fused)
 
 
-@pytest.mark.parametrize("order", [1, 2, 3])
-@pytest.mark.parametrize("T_factor", [4, 32])
-def test_pallas_decode_matches_xla_scan(order, T_factor):
-    """The Mosaic decode kernel (one-hot-matmul row select + compare
-    searchsorted, VERDICT r2 #3) must be bit-identical to the XLA scan
-    path through the full quality codec (interpret mode on CPU).
-    T_factor=32 makes T=1024 > TT2=512, covering the MULTI-time-tile
-    grid (scratch state carried across tiles, per-tile out spec) that
-    production's T=2048 always uses."""
-    from scalce_tpu.ops import rans_decode_pallas as rdp
-    from scalce_tpu.streams import qualities as Q
-    if not rdp.PALLAS_OK:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(11)
-    B, L = (64, 32) if T_factor == 4 else (512, 32)   # keep N >= NT floor
-    # serially-correlated quals so order-1/2 contexts are exercised,
-    # plus var-len padding rows
-    base = np.clip(np.cumsum(rng.integers(-2, 3, size=(B, L)), axis=1)
-                   + 38, 2, 80).astype(np.uint8) + 33
-    lengths = rng.integers(8, L + 1, size=B).astype(np.int32)
-    col = np.arange(L)[None, :]
-    qual = np.where(col < lengths[:, None], base, 0).astype(np.uint8)
-    enc = Q.encode(qual, lengths, order=order, T_target=T_factor * L)
-    N = enc.states.shape[0]
-    # reference: XLA scan decode
-    ref = Q.decode_host(enc, lengths)
-    # pallas (interpret)
-    W = max(128, int(enc.counts.max()) + 1)
-    from scalce_tpu.io.fastq import ragged_scatter
-    words_padded = np.zeros((N, W), dtype=np.uint16)
-    ragged_scatter(words_padded.reshape(-1),
-                   np.arange(N, dtype=np.int64) * W, enc.words,
-                   enc.counts.astype(np.int64))
-    old_nt = rdp._NT
-    rdp._NT = 16
-    try:
-        syms = rdp.decode_scan_pallas(
-            jnp.asarray(enc.states)[None], jnp.asarray(words_padded)[None],
-            jnp.asarray(enc.freq)[None], jnp.asarray(lengths)[None],
-            order, enc.T, enc.L, interpret=True)[0]
-    finally:
-        rdp._NT = old_nt
-    got = np.asarray(Q._qual_from_syms(syms, jnp.asarray(lengths),
-                                       enc.T, B, L))
-    np.testing.assert_array_equal(got, ref)
-
-
 def test_order3_cross_path_identity_and_roundtrip():
     """Order 3 (pos32 x full prev1) must round-trip and be bit-identical
     across the native, numpy, and device (XLA scan) coders — same
@@ -705,56 +615,6 @@ def test_auto_order_picks_3_on_fine_position_structure():
                    + 38, 2, 80).astype(np.uint8) + 33
     enc2 = qualities.encode_host(walk, lengths, order=0)
     assert enc2.order in (1, 2)
-
-
-def test_pallas_histogram_matches_scatter_add():
-    """The Mosaic one-hot-matmul histogram (VERDICT r3 #2) must be
-    bit-identical to the XLA `.at[].add` fallback (interpret mode on
-    CPU; compiled on TPU), including through the quality context model
-    at every order."""
-    from scalce_tpu.ops import hist_pallas
-    if not hist_pallas.PALLAS_OK:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(3)
-    # raw kernel vs bincount across awkward sizes (non-tile-multiple S,
-    # cells not a multiple of the lane factor, cells < one lane row)
-    for S, n_cells in [(10_000, 71_534), (16_384, 285_854), (777, 94),
-                       (4096, 131_694), (1, 3)]:
-        idx = rng.integers(0, n_cells, S).astype(np.int32)
-        ref = np.bincount(idx, minlength=n_cells).astype(np.int32)
-        got = np.asarray(hist_pallas.histogram_pallas(
-            jnp.asarray(idx), n_cells, interpret=True))
-        np.testing.assert_array_equal(got, ref)
-    # through sym_ctx_hist: force the gate on (interpret via monkeypatch)
-    B, L = 96, 64
-    lengths = rng.integers(40, L + 1, B).astype(np.int32)
-    col = np.arange(L)[None, :]
-    qual = np.where(col < lengths[:, None],
-                    rng.integers(33, 75, (B, L)), 0).astype(np.uint8)
-    for order in (1, 2, 3):
-        _, _, ref_counts = qualities.sym_ctx_hist(
-            jnp.asarray(qual), jnp.asarray(lengths), order)
-        n_cells = qualities.n_contexts(order) * qualities.N_SYMS
-        idx_np = None
-        sym, ctx, _ = qualities._sym_ctx_np(qual, lengths, order)
-        idx_np = (ctx.reshape(-1).astype(np.int64) * qualities.N_SYMS
-                  + sym.reshape(-1))
-        got = np.asarray(hist_pallas.histogram_pallas(
-            jnp.asarray(idx_np.astype(np.int32)), n_cells, interpret=True))
-        np.testing.assert_array_equal(got, np.asarray(ref_counts))
-
-
-def test_hist_pallas_eligibility_gate():
-    """Off-TPU and tiny inputs stay on the scatter-add path; realistic
-    quality-histogram shapes fit the VMEM budget."""
-    from scalce_tpu.ops import hist_pallas
-    if not hist_pallas.PALLAS_OK:
-        pytest.skip("pallas unavailable")
-    assert not hist_pallas.eligible(1 << 20, 71_534, "cpu")
-    assert not hist_pallas.eligible(100, 71_534, "tpu")
-    for order in (1, 2, 3):
-        cells = qualities.n_contexts(order) * qualities.N_SYMS
-        assert hist_pallas.eligible(131072 * 100, cells, "tpu")
 
 
 def test_hiseq_profile_order3_wins_and_auto_picks_it():
@@ -819,90 +679,62 @@ def test_table_cost_probe_zlib_fallback_tracks_analytic(monkeypatch):
             (order, analytic, measured)
 
 
-def test_slab_histogram_matches_scatter_add():
-    """The round-5 slab-factored histogram (VERDICT r4 #2: each symbol
-    matmuls into its position bucket's dense [prev, sym] slab — 8x less
-    padded MXU work than the flat-factored kernel, measured 38.9 ->
-    4.7 ms on v5e) must be bit-identical to the scatter-add through the
-    quality context model at every order, on ragged lengths, and on
-    both regroup paths (uniform 128-wide grid and the sliced general
-    path, e.g. an auto-sized 160-wide grid)."""
-    from scalce_tpu.ops import hist_pallas
-    if not hist_pallas.PALLAS_OK:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(5)
-    for B, L, lmin in ((96, 128, 40), (64, 160, 100), (128, 64, 17)):
-        lengths = rng.integers(lmin, L + 1, B).astype(np.int32)
-        col = np.arange(L)[None, :]
-        qual = np.where(col < lengths[:, None],
-                        rng.integers(33, 75, (B, L)), 0).astype(np.uint8)
-        for order in (1, 2, 3):
-            sym, ctx, ref_counts = qualities.sym_ctx_hist(
-                jnp.asarray(qual), jnp.asarray(lengths), order)
-            R, PB, cd = qualities._slab_spec(order)
-            got = np.asarray(hist_pallas.hist_ctx_slab_pallas(
-                sym, ctx, R, PB, cd, n_syms=qualities.N_SYMS,
-                interpret=True))
-            np.testing.assert_array_equal(got, np.asarray(ref_counts),
-                                          err_msg=f"B={B} L={L} o={order}")
-    # eligibility: tiny inputs and non-TPU backends stay on the exact
-    # fallback paths
-    assert not hist_pallas.slab_eligible(1 << 20, 95, "cpu")
-    assert not hist_pallas.slab_eligible(100, 95, "tpu")
-    for order in (1, 2, 3):
-        R, _, _ = qualities._slab_spec(order)
-        assert hist_pallas.slab_eligible(131072 * 128, R, "tpu")
-
-
-def test_tbl_encode_kernel_matches_gather_path():
-    """The round-5 table-resident Mosaic encode (slab-selected (f, cum)
-    via one-hot matmul over three bf16-exact byte planes of
-    v = f*4096 + cum) must be bit-identical to the pre-gathered-table
-    path across orders and ragged lengths (interpret mode on CPU;
-    compiled identity is covered by the TPU placement validation)."""
-    from scalce_tpu.ops import rans_pallas
-    if not rans_pallas.PALLAS_OK:
-        pytest.skip("pallas unavailable")
-    import jax
-    rng = np.random.default_rng(11)
-    B, L = 128, 64
-    lengths = rng.integers(30, L + 1, B).astype(np.int32)
+def _ragged_quals(rng, B, L, lmin=8):
+    """Serially-correlated qualities with var-len padding rows."""
+    base = np.clip(np.cumsum(rng.integers(-2, 3, size=(B, L)), axis=1)
+                   + 38, 2, 80).astype(np.uint8) + 33
+    lengths = rng.integers(lmin, L + 1, size=B).astype(np.int32)
     col = np.arange(L)[None, :]
-    qual = np.where(col < lengths[:, None],
-                    rng.integers(33, 75, (B, L)), 0).astype(np.uint8)
-    for order in (1, 2, 3):
-        sym, ctx, counts = qualities.sym_ctx_hist(
-            jnp.asarray(qual), jnp.asarray(lengths), order)
-        freq_dev, cum_dev = qualities._normalize_pass(counts, order)
-        T = qualities.pick_T(B, L, 256)
-        # reference: gather path
-        states_r, packed_r, wc_r = qualities._encode_pass(
-            sym, ctx, freq_dev.reshape(-1), cum_dev.reshape(-1), T)
-        # slab path, interpret-mode kernel
-        R, PB, cd = qualities._slab_spec(order)
-        colj = jnp.arange(L, dtype=jnp.int32)[None, :]
-        pbc = jnp.minimum(colj // cd, PB - 1)
-        ctx_i = ctx.astype(jnp.int32)
-        pidx = jnp.where(ctx_i == 0, R, ctx_i - 1 - pbc * R)
-        N = B * L // T
-        sym_l = sym.astype(jnp.int32).reshape(N, T).T
-        pidx_l = pidx.reshape(N, T).T
-        tbl = rans_pallas.build_encode_slabs(
-            freq_dev.reshape(-1, qualities.N_SYMS),
-            cum_dev.reshape(-1, qualities.N_SYMS), R, PB)
-        old_nt, old_tt = rans_pallas._NT, rans_pallas._TT
-        rans_pallas._NT, rans_pallas._TT = 128, 64
-        try:
-            states, words, emits = rans_pallas.encode_scan_tbl_pallas(
-                sym_l, pidx_l, tbl, T, L, cd, PB, interpret=True)
-        finally:
-            rans_pallas._NT, rans_pallas._TT = old_nt, old_tt
-        packed, wc = rans.compact_emissions(words, emits)
-        np.testing.assert_array_equal(np.asarray(states),
-                                      np.asarray(states_r),
-                                      err_msg=f"states o={order}")
-        np.testing.assert_array_equal(np.asarray(wc), np.asarray(wc_r),
-                                      err_msg=f"counts o={order}")
-        np.testing.assert_array_equal(np.asarray(packed),
-                                      np.asarray(packed_r),
-                                      err_msg=f"packed o={order}")
+    return np.where(col < lengths[:, None], base, 0).astype(np.uint8), lengths
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_context_histogram_matches_bincount(order):
+    """The device (ctx, sym) histogram is an integer scatter-add; it
+    must equal np.bincount over the NumPy context model exactly."""
+    rng = np.random.default_rng(40 + order)
+    qual, lengths = _ragged_quals(rng, 96, 64)
+    _, _, counts = qualities.sym_ctx_hist(jnp.asarray(qual),
+                                          jnp.asarray(lengths), order)
+    sym, ctx, _ = qualities._sym_ctx_np(qual, lengths, order)
+    idx = ctx.reshape(-1).astype(np.int64) * qualities.N_SYMS \
+        + sym.reshape(-1)
+    ref = np.bincount(idx, minlength=qualities.n_contexts(order)
+                      * qualities.N_SYMS)
+    np.testing.assert_array_equal(np.asarray(counts), ref)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("T_factor", [4, 32])
+def test_xla_decode_scan_matches_host_decoder(order, T_factor):
+    """The XLA decode scan (qualities.decode and the vmapped group
+    decode) must reproduce the native host decoder exactly.
+    T_factor=32 gives T=1024, a long scan like production's T=2048."""
+    rng = np.random.default_rng(11)
+    B, L = (64, 32) if T_factor == 4 else (512, 32)
+    qual, lengths = _ragged_quals(rng, B, L)
+    enc = qualities.encode_host(qual, lengths, order=order,
+                                T_target=T_factor * L)
+    assert enc.T == T_factor * L
+    ref = qualities.decode_host(enc, lengths)
+    np.testing.assert_array_equal(ref, qual)
+    np.testing.assert_array_equal(qualities.decode(enc, lengths), ref)
+    (got,) = qualities.decode_batch([enc], [lengths])
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_xla_encode_scan_matches_host_encoder(order):
+    """The XLA encode scan at the production span length (T=2048) must
+    emit the native host encoder's states, counts and words exactly."""
+    rng = np.random.default_rng(21 + order)
+    B, L = 256, 64
+    qual, lengths = _ragged_quals(rng, B, L)
+    host = qualities.encode_host(qual, lengths, order=order,
+                                 T_target=2048)
+    dev = qualities.encode(qual, lengths, order=order, T_target=2048)
+    assert dev.T == host.T == 2048
+    np.testing.assert_array_equal(dev.freq, host.freq)
+    np.testing.assert_array_equal(dev.states, host.states)
+    np.testing.assert_array_equal(dev.counts, host.counts)
+    np.testing.assert_array_equal(dev.words, host.words)

@@ -352,10 +352,9 @@ def test_core_placement_never_changes_bytes(tmp_path):
                                n_rate=0.01))
     b1 = next(fastq.iter_blocks(str(p1), 2048, 128))
     b2 = next(fastq.iter_blocks(str(p2), 2048, 128))
-    # placement is pinned EXPLICITLY on both sides: AUTO resolves via a
-    # cached link-speed probe, and under full-suite CPU load the probe
-    # can legitimately measure a degraded link and pick host — which is
-    # correct behavior but not what this byte-identity test is about.
+    # placement is pinned EXPLICITLY on both sides: AUTO resolves from
+    # the default backend (host on this CPU suite), which is not what
+    # this byte-identity test is about.
     dev = BlockEncoder(Config(mode="compress", inputs=("x",),
                               block_reads=2048, core_on_device=True))
     host = BlockEncoder(Config(mode="compress", inputs=("x",),
